@@ -1,6 +1,9 @@
-"""End-to-end tour of kmer_hasher_tpu on the reference's bundled data.
+"""End-to-end tour of kmer_hasher_tpu on seeded test data.
 
-Run:  python examples/demo.py [--cpu]
+Run:  python examples/demo.py [--cpu] [--data DIR]
+
+Without ``--data`` the seeded test files (kmer_hasher_tpu.synth) are
+written to a temporary directory first.
 
 Covers every capability of the original R extension (and the additions):
 index + dot-plot tables, streamed pairs, cross-sequence queries,
@@ -17,9 +20,17 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 parser = argparse.ArgumentParser()
 parser.add_argument("--cpu", action="store_true",
                     help="run on an 8-device virtual CPU mesh")
-parser.add_argument("--data", default="/root/reference",
-                    help="directory with test.fa / *.fastq[.gz]")
+parser.add_argument("--data", default=None,
+                    help="directory with test.fa / test_10.fastq / "
+                         "test.fastq.gz / repeat_40.fq")
 args = parser.parse_args()
+if args.data is None:
+    import tempfile
+
+    from kmer_hasher_tpu.synth import write_test_data
+
+    args.data = tempfile.mkdtemp(prefix="kmh_demo_")
+    write_test_data(args.data)
 
 if args.cpu:
     os.environ.setdefault(

@@ -242,8 +242,8 @@ def main(argv=None):
                         "the reference's thread_n, lifted to chips)")
     s.add_argument("--mesh-slices", type=int, default=None,
                    help="with --mesh: treat the N devices as this many "
-                        "DCN-connected slices (hierarchical slice-first "
-                        "key routing)")
+                        "groups joined by a slower link (hierarchical "
+                        "group-first key routing)")
     s.add_argument("--resume", default=None,
                    help="existing store to keep accumulating into; if it "
                         "holds a progress cursor (--checkpoint-every), "

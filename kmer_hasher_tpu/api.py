@@ -61,9 +61,8 @@ def make_kmer_hash(seq, k: int, do_sort: bool = False) -> KmerIndex:
 
 def make_kmer_hash_many(seqs, k: int) -> "list[KmerIndex]":
     """Build indexes for many sequences with one batched device program
-    per length bucket (TPU-native extension: the reference loops
-    make.kmer.hash per sequence; batched row sorts run 1.2-3x the flat
-    sort rate — see KmerIndex.build_many)."""
+    per length bucket (an extension: the reference loops make.kmer.hash
+    per sequence; see KmerIndex.build_many)."""
     return KmerIndex.build_many(seqs, k)
 
 

@@ -176,12 +176,10 @@ class KmerIndex:
         program (contigs, transcripts, amplicons — the reference loops
         make.kmer.hash per sequence, src/kmer_hash.c:506-540).
 
-        The batched [B, L] sort beats the flat single-sequence rate on
-        TPU for MANY SHORT rows (zb_build_many probe: 327 Mk/s full
-        build at [256, 2^14] vs the 268 Mk/s flat headline) but XLA's
-        per-row sort degrades for few long rows (41 Mk/s at [1, 2^25]),
-        so buckets with long rows or too few rows route to individual
-        1-D builds (the flat-sort path). Sequences bucket by padded
+        The batched [B, L] row sort serves MANY SHORT rows; buckets with
+        long rows or too few rows route to individual 1-D builds (the
+        flat-sort path). The crossover (rows longer than 2^16 or fewer
+        than 4) is not yet measured on the H100. Sequences bucket by padded
         length; each short bucket is one build_index_arrays call.
         Returns one KmerIndex per input, in input order, each
         indistinguishable from an individually-built one."""
@@ -207,8 +205,7 @@ class KmerIndex:
         out: List[Optional[KmerIndex]] = [None] * len(arrs)
         for L_pad, idxs in sorted(by_bucket.items()):
             if L_pad > (1 << 16) or len(idxs) < 4:
-                # measured crossover: long rows / tiny batches sort
-                # faster on the flat 1-D path
+                # long rows / tiny batches take the flat 1-D path
                 for i in idxs:
                     out[i] = cls(arrs[i], k)
                 continue

@@ -1,7 +1,7 @@
 """ctypes bindings for the native FASTA/FASTQ parser.
 
-Builds ``fastx.cpp`` on first use with g++ (cached under
-~/.cache/kmer_hasher_tpu) and exposes :func:`read_fastx` with the same
+Builds ``fastx.cpp`` on first use with g++ (cached under ``build/native``
+in the checkout, or ``KMH_NATIVE_CACHE``) and exposes :func:`read_fastx` with the same
 record format as the pure-Python reader. Falls back silently if no
 compiler/zlib is available — callers check :func:`available`.
 """
@@ -36,7 +36,8 @@ def _build() -> Optional[ctypes.CDLL]:
     cache = pathlib.Path(
         os.environ.get(
             "KMH_NATIVE_CACHE",
-            os.path.expanduser("~/.cache/kmer_hasher_tpu"),
+            str(pathlib.Path(__file__).resolve().parents[2] / "build"
+                / "native"),
         )
     )
     cache.mkdir(parents=True, exist_ok=True)
@@ -44,7 +45,7 @@ def _build() -> Optional[ctypes.CDLL]:
     tag = hashlib.sha256(src).hexdigest()[:16]
     so = cache / f"fastx_{tag}.so"
     if not so.exists():
-        tmp = so.with_suffix(".so.tmp")
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")  # concurrent builders
         cmd = [
             "g++", "-O2", "-shared", "-fPIC", "-std=c++17",
             str(_SRC), "-o", str(tmp), "-lz",
@@ -52,7 +53,7 @@ def _build() -> Optional[ctypes.CDLL]:
         r = subprocess.run(cmd, capture_output=True, timeout=300)
         if r.returncode != 0:
             return None
-        tmp.rename(so)
+        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     lib.fastx_read.restype = ctypes.POINTER(_FastxResult)
     lib.fastx_read.argtypes = [ctypes.c_char_p, ctypes.c_int64]

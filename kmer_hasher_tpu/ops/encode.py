@@ -2,15 +2,14 @@
 
 The reference encodes k-mers with a sequential rolling register — one base
 per iteration, state at position i depending on i-1 (src/kmer_util.h:8,
-src/kmer_pos.c:88-95). That recurrence is the one thing a vector unit cannot
-chew on, so the TPU design eliminates it: every output position computes its
-packed k-mer *independently* via a log2(k) shift-OR doubling scan, turning
-encoding into O(L log k) pure elementwise work on the VPU with no
-loop-carried dependency.
+src/kmer_pos.c:88-95). That recurrence serialises the whole sequence, so
+this design eliminates it: every output position computes its packed k-mer
+*independently* via a log2(k) shift-OR doubling scan, turning encoding into
+O(L log k) pure elementwise work with no loop-carried dependency.
 
 Representation: a k-mer (k <= 32) is 2k bits split across two uint32 lanes
 ``(hi, lo)`` — ``lo`` holds the last min(k,16) bases, ``hi`` the remainder —
-because XLA:TPU's native integer width is 32 bits. All comparisons are
+so the elementwise work stays in 32-bit integer ops. All comparisons are
 unsigned lexicographic on (hi, lo).
 
 Base encoding matches the reference exactly: ``code(c) = (c>>1)&3`` maps
@@ -58,8 +57,7 @@ def unpack_seq(codes_packed: jax.Array,
     c = (codes_packed[..., :, None]
          >> jnp.asarray([0, 2, 4, 6], jnp.uint8)) & jnp.uint8(3)
     c = c.reshape(codes_packed.shape[:-1] + (codes_packed.shape[-1] * 4,))
-    # code -> byte without a table gather (XLA:TPU gathers are slow):
-    # 0->'A' 1->'C' 2->'T' 3->'G', via nested selects on the VPU
+    # code -> byte by nested selects: 0->'A' 1->'C' 2->'T' 3->'G'
     b = jnp.where(
         c == 0, jnp.uint8(ord("A")),
         jnp.where(c == 1, jnp.uint8(ord("C")),
@@ -78,8 +76,7 @@ def unpack_qual(qnib: jax.Array, qdict: jax.Array) -> jax.Array:
     (io.native.iter_fastx_packed): ``qnib[..., Lp/2]`` holds dict indices
     little-endian within each byte, ``qdict[16]`` the actual byte values.
     Byte-EXACT — even the f64 bit-parity likelihood path sees identical
-    input. Select chain instead of a table gather (XLA:TPU gathers are
-    slow; 15 vector selects are cheap on the VPU)."""
+    input. A select chain, fused elementwise by XLA."""
     if qdict.shape[0] == 1:  # 6-bit relative form (see unpack_qual6)
         return unpack_qual6(qnib, qdict)
     q = (qnib[..., :, None] >> jnp.asarray([0, 4], jnp.uint8)) & jnp.uint8(15)
@@ -204,8 +201,8 @@ def revcomp_windows(
     end (UPDATE_OFFSET_RC, src/kmer_util.h:9) and shifts it down by 64-2k at
     extraction (src/kmer_util.c:63). Here RC is derived from the forward
     code directly: complement = xor 0b10 per group, order = full 64-bit
-    2-bit-group reversal, then shift right by 64-2k. ~12 VPU ops, no second
-    encode pipeline.
+    2-bit-group reversal, then shift right by 64-2k. ~12 elementwise ops,
+    no second encode pipeline.
     """
     rhi = _rev_groups_u32(lo ^ _COMP_MASK)
     rlo = _rev_groups_u32(hi ^ _COMP_MASK)
@@ -287,39 +284,6 @@ def window_valid(
     return valid
 
 
-def drop_trailing_mask(ascii_u8: jax.Array, k: int, true_len) -> jax.Array:
-    """False exactly at window starts the trailing-exact-k quirk drops
-    (see :func:`window_valid`); True elsewhere. Works for 1-D sequences
-    (scalar true_len) and (B, L) batches (vector true_len). Used by the
-    Pallas encode branches, whose kernels skip the quirk."""
-    L = ascii_u8.shape[-1]
-    tl = jnp.asarray(true_len, jnp.int32)
-    idx = jnp.arange(L, dtype=jnp.int32)
-    a = jnp.clip(tl - k, 0, L - 1)
-    if ascii_u8.ndim == 1:
-        prev = ascii_u8[jnp.clip(a - 1, 0, L - 1)]
-    else:
-        prev = jnp.take_along_axis(
-            ascii_u8, jnp.clip(a - 1, 0, L - 1)[..., None], axis=-1
-        )[..., 0]
-        idx = idx[None, :]
-        tl = tl[..., None]
-        a = a[..., None]
-        prev = prev[..., None]
-    prev_is_n = (a == 0) | ((prev | jnp.uint8(0x20)) == jnp.uint8(ord("n")))
-    return ~((idx == tl - k) & prev_is_n)
-
-
-def _use_pallas(ascii_u8) -> bool:
-    import os
-
-    return (
-        os.environ.get("KMH_PALLAS", "1") != "0"
-        and ascii_u8.ndim in (1, 2)
-        and jax.default_backend() == "tpu"
-    )
-
-
 @functools.partial(
     jax.jit, static_argnames=("k", "canonical", "drop_trailing_exact_k")
 )
@@ -327,30 +291,12 @@ def encode_stream(
     ascii_u8: jax.Array, k: int, true_len, canonical: bool = False,
     drop_trailing_exact_k: bool = False,
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
-    """Full encode: ASCII -> (hi, lo, valid) over window start positions.
-
-    On TPU, 1-D inputs take the fused Pallas kernel
-    (ops.pallas_encode, bit-identical); batched inputs and other backends
-    take the XLA doubling graph. KMH_PALLAS=0 forces the XLA path.
+    """Full encode: ASCII -> (hi, lo, valid) over window start positions
+    (the doubling graph, which XLA fuses into a few elementwise kernels).
     """
-    if _use_pallas(ascii_u8) and ascii_u8.ndim == 2:
-        from .pallas_encode import pallas_encode_batch
-
-        hi, lo, valid = pallas_encode_batch(ascii_u8, k, true_len)
-        if drop_trailing_exact_k:
-            valid &= drop_trailing_mask(ascii_u8, k, true_len)
-    elif _use_pallas(ascii_u8):
-        from .pallas_encode import pallas_encode
-
-        hi, lo, valid = pallas_encode(ascii_u8, k, true_len)
-        if drop_trailing_exact_k:
-            # only the window ending exactly at true_len can be dropped,
-            # and only when it starts a fresh region (preceded by N/BOS)
-            valid &= drop_trailing_mask(ascii_u8, k, true_len)
-    else:
-        codes = base_codes(ascii_u8)
-        hi, lo = encode_windows(codes, k)
-        valid = window_valid(ascii_u8, k, true_len, drop_trailing_exact_k)
+    codes = base_codes(ascii_u8)
+    hi, lo = encode_windows(codes, k)
+    valid = window_valid(ascii_u8, k, true_len, drop_trailing_exact_k)
     if canonical:
         rhi, rlo = revcomp_windows(hi, lo, k)
         hi, lo = canonical_windows(hi, lo, rhi, rlo)

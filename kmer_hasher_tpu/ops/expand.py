@@ -5,8 +5,8 @@ cross-products — src/kmer_hash.c:1054-1147,1151-1203, src/kmer_pos.c:101-136)
 map each output row ``g`` in ``[start, start+Q)`` to its source row via
 ``searchsorted(cum, g)``. The gather-free rank merge (ops/sort.
 ``expand_rank_merge_i64``) removed the per-row binary-search gathers, but it
-still drags all ``T`` table rows through HBM for EVERY chunk, and ~4 payload
-gathers per output row remain (XLA:TPU gather ≈ 115 M elem/s, PERF.md).
+still drags all ``T`` table rows through device memory for EVERY chunk, and
+~4 payload gathers per output row remain.
 
 A *plan* compacts the producing rows (``count > 0``) once per stream, in
 original order, making the compacted cumulative array STRICTLY increasing.

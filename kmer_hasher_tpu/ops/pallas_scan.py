@@ -1,19 +1,20 @@
-"""Pallas TPU kernel for the quality-likelihood FSM (fast mode).
+"""Pallas kernel (Triton route) for the quality-likelihood FSM in float32.
 
-``ops.scan_iter.ll_scan`` expresses the per-read iterator as a ``lax.scan``
-whose step does ~60 tiny elementwise ops on [B]-shaped operands; measured on
-the v5e it is bound not by the VPU but by per-step overheads. This kernel
-uses the Pallas pipelining shape with a *blocked* position axis: the grid
-iterates (read-tile, position-block), each step's (PB, 8, 128) input blocks
-are DMA-pipelined by pallas_call, and the PB positions inside a block run as
-a statically unrolled register loop — FSM state touches VMEM scratch only
-once per block, and DMA issue overhead amortises over PB positions.
-One grid cell carries 1024 reads (an (8, 128) vector register set).
+``ops.scan_iter.ll_scan`` runs the per-read iterator as a ``lax.scan``
+over base positions: each step is a handful of tiny elementwise ops on
+[B]-shaped operands, and XLA lowers the scan to a device loop whose every
+iteration launches kernels and round-trips the whole FSM state through
+device memory. Here one program owns a block of reads, one read per lane,
+and walks the positions in an in-kernel loop with the state in registers:
+device memory sees each input byte once and each output word once.
 
-Float32 only (the "fast" precision): float64 is emulated on TPU and the
-exact-parity path stays on the lax.scan implementation. Bit-identical to
-``ll_scan(..., precision="fast")`` — same op order in f32 — which the tests
-assert.
+Inputs are read in the [L, B] layout (position-major), so neighbouring
+lanes read neighbouring bytes of one position row. The log-likelihood
+terms come from a 256-entry float32 table of ``analytic_ll_f32`` evaluated
+by the backend itself (:func:`scan_iter.ll_table_f32`), the same values the
+hybrid error bound was derived from, so results are bit-identical to
+``ll_scan(..., precision="fast")`` (and its flags with
+``return_flags=True``), which the tests assert.
 """
 from __future__ import annotations
 
@@ -22,43 +23,39 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from .scan_iter import _ABS0, _rel_bound, analytic_ll_f32, fast_min_ll
+from .scan_iter import _ABS0, _rel_bound, fast_min_ll, ll_table_f32
 
 U32 = jnp.uint32
 F32 = jnp.float32
 I32 = jnp.int32
-TILE = 1024  # reads per grid cell: one (8, 128) vector register set
-_SUB = 8
-_LANES = 128
-_PB = 16  # positions per grid step (DMA amortisation)
+BLOCK = 128  # reads per program: one read per thread at 4 warps
+_NUM_WARPS = 4
 
 
-def _fsm_step(state, c, llv, llnext, on, *, k, min_ll_v, shp,
-              err_consts=None):
-    """One FSM transition over an (8, 128) register set; returns
-    (state', emit). Mirrors ops.scan_iter.ll_scan's step exactly.
+def _fsm_step(state, c, llv, llnext, on, *, k, min_ll_v, err_consts=None):
+    """One FSM transition over a block of reads; returns (state', emit).
+    Mirrors ops.scan_iter.ll_scan's step op for op, in float32.
 
     ``err_consts`` (hybrid mode) = (rel, abs0, merr) floats: the tracked
-    f32 error-bound flag machinery of ops.scan_iter.ll_scan
-    (return_flags=True) — state carries two extra error lanes aerr/eerr,
-    and a comparison flags the read when it falls within its tracked
-    error bound of min_ll (with the q == min_q bitwise-equality
-    exemptions; see ll_scan's docstring)."""
+    f32 error-bound flag machinery of ``ll_scan(return_flags=True)`` —
+    the state carries two extra error lanes aerr/eerr, and a comparison
+    flags the read when it falls within its tracked error bound of min_ll
+    (with the q == min_q bitwise-equality exemptions; see ll_scan)."""
     if err_consts is not None:
         (rolling, j, fhi, flo, rhi, rlo, acc, emitC, border,
          aerr, eerr) = state
     else:
-        rolling, j, fhi, flo, rhi, rlo, acc, emitC, border = state
-        aerr = eerr = None
+        rolling, j, fhi, flo, rhi, rlo, acc, emitC = state
+    shp = c.shape
     zf = jnp.zeros(shp, F32)
     zu = jnp.zeros(shp, U32)
     zi = jnp.zeros(shp, I32)
     if k <= 16:
         lo_mask = U32((1 << (2 * k)) - 1 if k < 16 else 0xFFFFFFFF)
-        hi_mask = U32(0)
     else:
         hi_mask = U32((1 << (2 * (k - 16))) - 1) if k < 32 else U32(0xFFFFFFFF)
 
@@ -118,17 +115,14 @@ def _fsm_step(state, c, llv, llnext, on, *, k, min_ll_v, shp,
     completed = building & b_ok & (j_new == k) & on
     emit = (completed | (roll_ok & rolling)) & on
 
-    # select on i1 vectors is unsupported in Mosaic; use boolean algebra
-    rolling_new = (on & ((rolling & ~roll_fail) | completed)) | (
-        ~on & rolling
-    )
+    rolling_new = jnp.where(on, (rolling & ~roll_fail) | completed, rolling)
     j_new = jnp.where(on, jnp.where(roll_fail, zi, j_new), j)
     acc_new = jnp.where(on, jnp.where(roll_fail, zf, acc_new), acc)
     emitC = jnp.where(completed, acc_new - llv + llnext,
                       jnp.where(roll_fail, zf, emitC))
     if err_consts is None:
-        return (rolling_new, j_new, fhi, flo, rhi, rlo, acc_new, emitC,
-                border), emit
+        return (rolling_new, j_new, fhi, flo, rhi, rlo, acc_new,
+                emitC), emit
     # error-lane updates mirror the value updates op for op (see
     # ops.scan_iter.ll_scan)
     aerr_base = jnp.where(ok1, aerr, zf)
@@ -147,153 +141,86 @@ def _fsm_step(state, c, llv, llnext, on, *, k, min_ll_v, shp,
             border, aerr_new, eerr_new), emit
 
 
-def _kernel(*refs, k: int, min_ll: float, pb: int, err_consts):
+def _kernel(seq_ref, qual_ref, len_ref, tab_ref, *out_refs, k: int,
+            min_ll: float, err_consts):
     if err_consts is not None:
-        (codes_ref, ll_ref, llnext_ref, on_ref, emit_ref, fhi_ref,
-         flo_ref, rhi_ref, rlo_ref, flag_ref, rolling_s, j_s, fhi_s,
-         flo_s, rhi_s, rlo_s, acc_s, emitC_s, border_s, aerr_s,
-         eerr_s) = refs
+        emit_ref, fhi_ref, flo_ref, rhi_ref, rlo_ref, flag_ref = out_refs
     else:
-        (codes_ref, ll_ref, llnext_ref, on_ref, emit_ref, fhi_ref,
-         flo_ref, rhi_ref, rlo_ref, rolling_s, j_s, fhi_s, flo_s, rhi_s,
-         rlo_s, acc_s, emitC_s) = refs
-        flag_ref = border_s = aerr_s = eerr_s = None
-    shp = (_SUB, _LANES)
-    zf = jnp.zeros(shp, F32)
-    zu = jnp.zeros(shp, U32)
-    zi = jnp.zeros(shp, I32)
-    min_ll_v = jnp.full(shp, min_ll, F32)
-    blk = pl.program_id(1)
+        emit_ref, fhi_ref, flo_ref, rhi_ref, rlo_ref = out_refs
+    L = seq_ref.shape[0]
+    lengths = len_ref[...]
+    long_read = lengths > k
+    min_ll_v = jnp.full((BLOCK,), min_ll, F32)
 
-    @pl.when(blk == 0)
-    def _init():
-        rolling_s[...] = zu
-        j_s[...] = zi
-        fhi_s[...] = zu
-        flo_s[...] = zu
-        rhi_s[...] = zu
-        rlo_s[...] = zu
-        acc_s[...] = zf
-        emitC_s[...] = zf
-        if border_s is not None:
-            border_s[...] = zu
-            aerr_s[...] = zf
-            eerr_s[...] = zf
+    def ll_at(p):
+        q = qual_ref[p, :].astype(I32)
+        return plgpu.load(tab_ref.at[q])
 
-    state = (
-        rolling_s[...] != 0, j_s[...], fhi_s[...], flo_s[...], rhi_s[...],
-        rlo_s[...], acc_s[...], emitC_s[...],
-    )
-    if border_s is not None:
-        state = state + (border_s[...] != 0, aerr_s[...], eerr_s[...])
-    else:
-        state = state + (None,)
-    for r in range(pb):  # statically unrolled register loop
-        state, emit = _fsm_step(
-            state, codes_ref[r], ll_ref[r], llnext_ref[r],
-            on_ref[r] != 0, k=k, min_ll_v=min_ll_v, shp=shp,
-            err_consts=err_consts,
-        )
-        emit_ref[r] = jnp.where(emit, jnp.ones(shp, U32), zu)
-        fhi_ref[r] = state[2]
-        flo_ref[r] = state[3]
-        rhi_ref[r] = state[4]
-        rlo_ref[r] = state[5]
-    rolling_s[...] = jnp.where(state[0], jnp.ones(shp, U32), zu)
-    j_s[...] = state[1]
-    fhi_s[...] = state[2]
-    flo_s[...] = state[3]
-    rhi_s[...] = state[4]
-    rlo_s[...] = state[5]
-    acc_s[...] = state[6]
-    emitC_s[...] = state[7]
-    if border_s is not None:
-        b = jnp.where(state[8], jnp.ones(shp, U32), zu)
-        border_s[...] = b
-        # the tracked error bounds must persist across position blocks or
-        # the bound resets every pb positions and borderline reads go
-        # unflagged (breaking hybrid's bitwise parity with exact)
-        aerr_s[...] = state[9]
-        eerr_s[...] = state[10]
-        # the flag block's index map repeats over the (minor) position
-        # grid axis, so it stays resident in VMEM; the final block's
-        # write is the per-read flag
-        flag_ref[...] = b
+    def body(p, carry):
+        state, llv = carry
+        c = (seq_ref[p, :].astype(U32) >> 1) & U32(3)
+        on = long_read & (p < lengths)
+        # ll of the base after the window, 0 past the read end (the
+        # clamped load at p == L-1 is always masked by the length)
+        llnext = jnp.where(p + 1 < lengths,
+                           ll_at(jnp.minimum(p + 1, L - 1)), F32(0.0))
+        state, emit = _fsm_step(state, c, llv, llnext, on, k=k,
+                                min_ll_v=min_ll_v, err_consts=err_consts)
+        emit_ref[p, :] = emit.astype(jnp.uint8)
+        fhi_ref[p, :] = state[2]
+        flo_ref[p, :] = state[3]
+        rhi_ref[p, :] = state[4]
+        rlo_ref[p, :] = state[5]
+        # the next step's own term: ll[p+1] unmasked (padding quality
+        # bytes give the sentinel term, exactly as ll_scan sees them)
+        return state, ll_at(jnp.minimum(p + 1, L - 1))
+
+    zf = jnp.zeros((BLOCK,), F32)
+    zu = jnp.zeros((BLOCK,), U32)
+    zb = jnp.zeros((BLOCK,), jnp.bool_)
+    state = (zb, jnp.zeros((BLOCK,), I32), zu, zu, zu, zu, zf, zf)
+    if err_consts is not None:
+        state = state + (zb, zf, zf)
+    state, _ = jax.lax.fori_loop(0, L, body, (state, ll_at(0)))
+    if err_consts is not None:
+        flag_ref[...] = state[8].astype(jnp.uint8)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("k", "min_ll", "out_layout", "interpret", "pb",
-                     "return_flags", "min_q_char"),
+    static_argnames=("k", "min_ll", "return_flags", "min_q_char",
+                     "interpret"),
 )
 def ll_scan_pallas(
     ascii_u8: jax.Array, qual_u8: jax.Array, lengths: jax.Array, k: int,
-    min_ll, out_layout: str = "BL", interpret: bool = False, pb: int = _PB,
-    return_flags: bool = False, min_q_char: int | None = None,
+    min_ll: float, return_flags: bool = False,
+    min_q_char: int | None = None, interpret: bool = False,
 ) -> Tuple[jax.Array, ...]:
-    """Drop-in for ``ll_scan(..., precision='fast')``: returns
-    (emit, fhi, flo, rhi, rlo).
+    """``ll_scan(..., precision='fast')`` as one kernel, in the [L, B]
+    layout: returns (emit, fhi, flo, rhi, rlo) each [L, B] — the
+    transposes of ll_scan's [B, L] outputs (order-insensitive consumers
+    such as counting flatten either way).
 
-    out_layout "BL" matches ll_scan ([B, L]); "LB" skips the five output
-    transposes and returns [Lp, Bp] device arrays (order-insensitive
-    consumers like counting use this — transposes are a large fraction of
-    the wall time on TPU).
-
-    return_flags: additionally return the per-read borderline flag (bool,
-    [B] for "BL" / [Bp] for "LB") — the tracked f32 error-bound predicate
-    of ``ll_scan(..., return_flags=True)`` (hybrid mode).
+    return_flags: additionally return the per-read borderline flag (bool
+    [B]) of ``ll_scan(..., return_flags=True)`` (hybrid mode).
 
     min_q_char: when given, the comparison threshold becomes the backend's
     own analytic f32 value for that quality character (scan_iter
-    .fast_min_ll) so q == min_q terms compare bitwise-equal — the flag
+    .fast_min_ll), so q == min_q terms compare bitwise-equal — the flag
     exemptions depend on this; pass it whenever min_ll is a Q_TO_LL entry.
-    """
+
+    interpret: run the kernel in the Pallas interpreter (CPU tests)."""
     B, L = ascii_u8.shape
-    Bp = -(-B // TILE) * TILE
-    Lp = -(-L // pb) * pb
-    if Bp != B or Lp != L:
-        ascii_u8 = jnp.pad(ascii_u8, ((0, Bp - B), (0, Lp - L)),
+    Bp = -(-B // BLOCK) * BLOCK
+    if Bp != B:
+        ascii_u8 = jnp.pad(ascii_u8, ((0, Bp - B), (0, 0)),
                            constant_values=ord("N"))
-        qual_u8 = jnp.pad(qual_u8, ((0, Bp - B), (0, Lp - L)))
+        qual_u8 = jnp.pad(qual_u8, ((0, Bp - B), (0, 0)))
         lengths = jnp.pad(lengths, (0, Bp - B))
-    G = Bp // TILE
-    # transpose the narrow u8 arrays, then do all widening/elementwise work
-    # in the [Lp, Bp] layout the kernel wants
-    seq_t = ascii_u8.T  # [Lp, Bp] u8
-    qual_t = qual_u8.T
-    codes = (seq_t.astype(U32) >> 1) & 3
-    ll = analytic_ll_f32(qual_t)  # arithmetic: no slow table gather
-    ll_next = jnp.concatenate([ll[1:], jnp.zeros((1, Bp), F32)], axis=0)
-    ll_next = jnp.where(
-        (jnp.arange(Lp) + 1)[:, None] < lengths[None, :], ll_next, 0.0
-    )
-    in_read = jnp.arange(Lp)[:, None] < lengths[None, :]
-    row_on = ((lengths > k)[None, :] & in_read).astype(U32)
-
-    def to3d(a):  # [Lp, Bp] -> [Lp, G*8, 128]
-        return a.reshape(Lp, G * _SUB, _LANES)
-
-    out_shapes = [jax.ShapeDtypeStruct((Lp, G * _SUB, _LANES), U32)] * 5
-    # grid = (read tile, position block); i*0 keeps index tuples uniformly
-    # i32 under jax_enable_x64
-    spec = pl.BlockSpec((pb, _SUB, _LANES), lambda i, p: (p, i, i * 0),
-                        memory_space=pltpu.VMEM)
-    out_specs = [spec] * 5
-    scratch = [
-        pltpu.VMEM((_SUB, _LANES), U32),   # rolling
-        pltpu.VMEM((_SUB, _LANES), I32),   # j
-        *[pltpu.VMEM((_SUB, _LANES), U32)] * 4,  # fhi/flo/rhi/rlo
-        *[pltpu.VMEM((_SUB, _LANES), F32)] * 2,  # acc/emitC
-    ]
-    if min_q_char is not None:
-        # bitwise-equal threshold for q == min_q terms (see fast_min_ll)
-        min_ll_f = fast_min_ll(min_q_char)
-    else:
-        min_ll_f = float(min_ll)
+    min_ll_f = (fast_min_ll(min_q_char) if min_q_char is not None
+                else float(min_ll))
     err_consts = None
     if return_flags:
-        import numpy as np
-
         # merr in f32 step order, matching ll_scan's traced computation
         rel = np.float32(_rel_bound())
         abs0 = np.float32(_ABS0)
@@ -301,40 +228,30 @@ def ll_scan_pallas(
         merr = ((rel * m32 + abs0) if min_q_char is not None
                 else (np.float32(2.0 ** -24) * m32 + abs0))
         err_consts = (float(rel), float(abs0), float(merr))
-        out_shapes.append(
-            jax.ShapeDtypeStruct((G * _SUB, _LANES), U32)
-        )
-        out_specs.append(
-            pl.BlockSpec((_SUB, _LANES), lambda i, p: (i, i * 0),
-                         memory_space=pltpu.VMEM)
-        )
-        scratch.append(pltpu.VMEM((_SUB, _LANES), U32))  # border
-        scratch.append(pltpu.VMEM((_SUB, _LANES), F32))  # aerr
-        scratch.append(pltpu.VMEM((_SUB, _LANES), F32))  # eerr
+    col = pl.BlockSpec((L, BLOCK), lambda i: (0, i))
+    row = pl.BlockSpec((BLOCK,), lambda i: (i,))
+    out_shape = [jax.ShapeDtypeStruct((L, Bp), jnp.uint8)] + [
+        jax.ShapeDtypeStruct((L, Bp), U32)] * 4
+    out_specs = [col] * 5
+    if return_flags:
+        out_shape.append(jax.ShapeDtypeStruct((Bp,), jnp.uint8))
+        out_specs.append(row)
     outs = pl.pallas_call(
-        functools.partial(_kernel, k=k, min_ll=min_ll_f, pb=pb,
+        functools.partial(_kernel, k=k, min_ll=min_ll_f,
                           err_consts=err_consts),
-        grid=(G, Lp // pb),
-        in_specs=[spec] * 4,
+        grid=(Bp // BLOCK,),
+        in_specs=[col, col, row, pl.BlockSpec((256,), lambda i: (0,))],
         out_specs=out_specs,
-        out_shape=out_shapes,
-        scratch_shapes=scratch,
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS,
+                                             num_stages=2),
         interpret=interpret,
-    )(to3d(codes), to3d(ll), to3d(ll_next), to3d(row_on))
-    emit, fhi, flo, rhi, rlo = outs[:5]
-    flag = (outs[5].reshape(-1) != 0) if return_flags else None
-
-    if out_layout == "LB":
-        def flat(a):
-            return a.reshape(Lp, Bp)
-
-        res = ((flat(emit) != 0), flat(fhi), flat(flo), flat(rhi),
-               flat(rlo))
-        return res + (flag,) if return_flags else res
-
-    def back(a):  # [Lp, G*8, 128] -> [B, L]
-        return a.reshape(Lp, Bp).T[:B, :L]
-
-    res = ((back(emit) != 0), back(fhi), back(flo), back(rhi),
-           back(rlo))
-    return res + (flag[:B],) if return_flags else res
+        name="ll_fsm",
+    )(ascii_u8.T, qual_u8.T, lengths.astype(I32),
+      jnp.asarray(ll_table_f32()))
+    emit = outs[0][:, :B] != 0
+    res = (emit,) + tuple(o[:, :B] for o in outs[1:5])
+    if return_flags:
+        res = res + (outs[5][:B] != 0,)
+    return res

@@ -6,8 +6,9 @@ whose accept/reject decisions depend on data-dependent restarts
 src/kmer_hash.c:296-332 for the per-base-threshold loops). Those recurrences
 cannot be window-parallelised without changing semantics, so here they run
 as a ``lax.scan`` over base positions whose tiny per-read state is
-vectorised across the whole read batch — each scan step is elementwise VPU
-work over thousands of reads at once.
+vectorised across the whole read batch — each scan step is elementwise
+work over thousands of reads at once. ``ops.pallas_scan`` runs the float32
+likelihood FSM as one GPU kernel with the state in registers.
 
 Two FSMs:
 
@@ -52,6 +53,46 @@ _LN10_OVER_10 = 0.23025850929940458
 # sentinel contributes zero table-vs-analytic delta.
 _LL_SENTINEL = float(Q_TO_LL[33])
 
+# the backend's own analytic_ll_f32 over all 256 quality bytes, cached
+# per backend — see ll_table_f32()
+_LL_TABLE = None
+
+
+def ll_table_f32():
+    """``analytic_ll_f32`` over every quality byte (float32 [256] numpy),
+    evaluated BY THE ACTIVE BACKEND — the terms the fast paths compute.
+
+    Every f32 quantity the hybrid bound relies on is derived from this one
+    measurement: the per-term deltas (:func:`_delta_max`,
+    :func:`_rel_bound`), the analytic threshold (:func:`fast_min_ll`), and
+    the table the FSM kernel indexes (ops.pallas_scan). Measuring the
+    backend's own arithmetic matters: f32 exp/log1p round differently than
+    an f64-evaluated-then-cast proxy, which understates the true delta
+    ~3.6x. The first call may happen mid-trace (ll_scan is jitted and also
+    runs inside shard_map programs), so it escapes to a real eager
+    evaluation: a concrete measurement, never a tracer or a value XLA
+    constant-folded on the host."""
+    global _LL_TABLE
+    import numpy as np
+
+    backend = jax.default_backend()
+    if _LL_TABLE is None or _LL_TABLE[0] != backend:
+        with jax.ensure_compile_time_eval():
+            t = np.asarray(analytic_ll_f32(jnp.arange(256, dtype=jnp.uint8)))
+        _LL_TABLE = (backend, t.astype(np.float32))
+    return _LL_TABLE[1]
+
+
+def _host_and_device_terms():
+    """(host-numpy f32, backend f32) analytic terms for q = 34..255 as f64
+    arrays: the two evaluations every per-term bound must cover."""
+    import numpy as np
+
+    qf = np.arange(34, 256, dtype=np.float32) - np.float32(33.0)
+    host = np.log1p(-np.exp(qf * np.float32(-_LN10_OVER_10)))
+    return host.astype(np.float64), ll_table_f32()[34:].astype(np.float64)
+
+
 # max |table_f64[q] - analytic_f32(q)| over all non-sentinel q — the
 # per-term component of the hybrid-mode error bound. Cached per backend.
 _DELTA_MAX = None
@@ -59,18 +100,10 @@ _DELTA_MAX = None
 
 def _delta_max() -> float:
     """Per-term error bound between the exact path's f64 table terms and
-    the fast path's f32 analytic terms.
-
-    The analytic term is evaluated BY THE ACTIVE BACKEND via the very
-    :func:`analytic_ll_f32` both fast paths call (ll_scan's traced fast
-    branch, and pallas_ll_scan's XLA precompute at pallas_scan.py:222), so
-    the measured per-q deltas are those of the arithmetic actually
-    executed — not an f64-evaluated-then-cast proxy, which understates the
-    true delta ~3.6x (f32 exp/log1p round differently than casting the f64
-    result). A host-numpy f32 evaluation is folded in, and the result
-    carries a 2x + 2^-22 safety margin to cover eager-vs-jit lowering
-    differences on the device. Sentinel q (phred <= 0) is excluded: the
-    fast path emits the identical constant there (see _LL_SENTINEL).
+    the fast path's f32 analytic terms: the worst of the host-numpy and
+    the backend's own evaluation (:func:`ll_table_f32`), with a 2x +
+    2^-22 safety margin. Sentinel q (phred <= 0) is excluded: the fast
+    path emits the identical constant there (see _LL_SENTINEL).
     """
     global _DELTA_MAX
     import numpy as np
@@ -78,19 +111,9 @@ def _delta_max() -> float:
     backend = jax.default_backend()
     if _DELTA_MAX is None or _DELTA_MAX[0] != backend:
         table = np.asarray(Q_TO_LL)[34:]
-        qf = np.arange(34, 256, dtype=np.float32) - np.float32(33.0)
-        host = np.log1p(-np.exp(qf * np.float32(-_LN10_OVER_10)))
-        # first call may happen mid-trace (ll_scan is jitted and also runs
-        # inside shard_map programs): escape to a real eager evaluation so
-        # the result is a concrete measurement, not a tracer
-        with jax.ensure_compile_time_eval():
-            dev = np.asarray(
-                analytic_ll_f32(jnp.arange(34, 256, dtype=jnp.uint8))
-            ).astype(np.float64)
-        d = max(
-            float(np.max(np.abs(table - host.astype(np.float64)))),
-            float(np.max(np.abs(table - dev))),
-        )
+        host, dev = _host_and_device_terms()
+        d = max(float(np.max(np.abs(table - host))),
+                float(np.max(np.abs(table - dev))))
         _DELTA_MAX = (backend, 2.0 * d + 2.0 ** -22)
     return _DELTA_MAX[1]
 
@@ -123,14 +146,9 @@ def _rel_bound() -> float:
     backend = jax.default_backend()
     if _REL_BOUND is None or _REL_BOUND[0] != backend:
         table = np.asarray(Q_TO_LL)[34:]
-        qf = np.arange(34, 256, dtype=np.float32) - np.float32(33.0)
-        host = np.log1p(-np.exp(qf * np.float32(-_LN10_OVER_10)))
-        with jax.ensure_compile_time_eval():
-            dev = np.asarray(
-                analytic_ll_f32(jnp.arange(34, 256, dtype=jnp.uint8))
-            ).astype(np.float64)
+        host, dev = _host_and_device_terms()
         rel = 0.0
-        for t in (host.astype(np.float64), dev):
+        for t in (host, dev):
             d = np.maximum(np.abs(table - t) - _ABS0 / 2, 0.0)
             den = np.maximum(np.maximum(np.abs(table), np.abs(t)), 1e-30)
             rel = max(rel, float(np.max(d / den)))
@@ -148,10 +166,7 @@ def _rel_bound() -> float:
         # flagging floor that exceeds the table's own gaps near its
         # ~1e-11 tail, while the actual analytic f32 error there is
         # relative, ~1e-18.)
-        for name, t32 in (
-            ("host", host.astype(np.float64)),
-            (backend, dev),
-        ):
+        for name, t32 in (("host", host), (backend, dev)):
             d32 = np.diff(t32)
             if (d32 < 0.0).any():
                 i = int(np.argmax(d32 < 0.0))
@@ -173,12 +188,10 @@ def _rel_bound() -> float:
     return _REL_BOUND[1]
 
 
-_FAST_MIN_LL = {}
-
-
 def fast_min_ll(min_q_char: int) -> float:
     """The fast path's comparison threshold for ``min_q``: the active
-    backend's own ``analytic_ll_f32`` output for that quality character.
+    backend's own ``analytic_ll_f32`` output for that quality character
+    (:func:`ll_table_f32`).
 
     The exact path compares table values against the table value of
     min_q_char, so a base with q == min_q compares EQUAL (never accepted
@@ -191,25 +204,16 @@ def fast_min_ll(min_q_char: int) -> float:
     comparison is bitwise equal -> same decision as exact, deterministically
     (no other q can collide: table gaps exceed f32 resolution everywhere
     outside the flushed-to-0.0 tail, where the values are exactly equal
-    anyway). Cached per backend; eager evaluation."""
-    backend = jax.default_backend()
-    key = (backend, int(min_q_char))
-    if key not in _FAST_MIN_LL:
-        import numpy as np
-
-        with jax.ensure_compile_time_eval():
-            v = np.asarray(analytic_ll_f32(
-                jnp.full((1,), int(min_q_char), jnp.uint8)))[0]
-        _FAST_MIN_LL[key] = float(v)
-    return _FAST_MIN_LL[key]
+    anyway)."""
+    return float(ll_table_f32()[int(min_q_char)])
 
 
 def analytic_ll_f32(qual_u8: jax.Array) -> jax.Array:
     """Float32 log-likelihood computed arithmetically:
     log1p(-10**(-(q-33)/10)), with the table's log(DBL_MIN) sentinel for
     phred <= 0 — the formula behind the Q_TO_LL table (qll.py), evaluated
-    instead of gathered (XLA:TPU gathers are slow). Used by the "fast" and
-    "hybrid" precision paths."""
+    instead of gathered. Used by the "fast" and "hybrid" precision
+    paths."""
     q = qual_u8.astype(jnp.float32) - 33.0
     raw = jnp.log1p(-jnp.exp(q * jnp.float32(-_LN10_OVER_10)))
     return jnp.where(q <= 0, jnp.float32(_LL_SENTINEL), raw)
@@ -257,11 +261,10 @@ def ll_scan(
     loop skips them, src/kmer_reader.c:54-55).
 
     precision: "exact" gathers the embedded Q_TO_LL table and accumulates
-    in float64, reproducing the C double arithmetic bit-for-bit — but
-    float64 is emulated (slow) on TPU. "fast" computes the log-likelihoods
-    arithmetically in float32 (table gathers are slow on TPU); accept
-    /reject decisions can differ from the reference only when a window sum
-    sits within float32 rounding of the threshold.
+    in float64, reproducing the C double arithmetic bit-for-bit. "fast"
+    computes the log-likelihoods arithmetically in float32; accept/reject
+    decisions can differ from the reference only when a window sum sits
+    within float32 rounding of the threshold.
 
     return_flags (fast mode): additionally return a per-read bool flag [B]
     that is True whenever *any* comparison the FSM made for that read fell
@@ -434,8 +437,7 @@ def ll_scan(
     xs = (
         codes.T, ll.T, ll_next.T, row_on.T,
     )
-    # unrolling amortises the per-step loop overhead that dominates this
-    # tiny-bodied scan on TPU
+    # unrolling amortises the per-step loop overhead of this tiny body
     carry, outs = jax.lax.scan(step, init, xs, unroll=unroll)
     emit, fhi, flo, rhi, rlo = (o.T for o in outs)
     if return_flags:

@@ -1,11 +1,11 @@
-"""Sort-based segmented grouping — the TPU replacement for khash.
+"""Sort-based segmented grouping — the data-parallel replacement for khash.
 
 The reference's hot loop is one open-addressing hash probe + growable-vector
 push per base (src/kmer_pos.c:36-50, khash.h:230-360): pointer chasing that
 cannot vectorise. Here the index is a *sorted* (kmer, pos) array: grouping,
 counting, membership and range queries all become data-parallel primitives
 (lexicographic sort, segment boundary flags, prefix sums, binary search)
-that XLA maps well onto TPU. The khash prefix/suffix split survives only as
+that XLA maps onto the device. The khash prefix/suffix split survives only as
 the multi-chip routing key (see kmer_hasher_tpu.parallel).
 
 Keys are (hi, lo) uint32 pairs, unsigned-lexicographic. All shapes static:
@@ -22,63 +22,23 @@ import jax.numpy as jnp
 
 I32 = jnp.int32
 
-# fused stage-QUAD bitonic passes (read once at import — it selects
-# traced program structure, so runtime flips would desync cached jits).
-# Default ON: chip A/B measured 2.61 -> 2.33 ns/elem (10.5%) on a full
-# 2^24 (u64, u32) merge (tools/chip_probes/quad_merge_probe.py);
-# KMH_MERGE_QUAD=0 reverts to stage pairs.
+# Network stages fused per pass over device memory in
+# bitonic_merge_lanes (KMH_MERGE_DEPTH overrides; the legacy
+# KMH_MERGE_QUAD/KMH_MERGE_OCT toggles map onto depths 4/5 when set to 0).
+# Read once at import: it selects traced program structure, so runtime
+# flips would desync cached jits.
 import os as _os  # noqa: E402
 
 _MERGE_QUAD = _os.environ.get("KMH_MERGE_QUAD", "1") == "1"
-# stage-OCT passes (5 network stages per HBM pass) measured 2.038 vs
-# quad 2.320 ns/elem on the full 2^24 (u64, u32-count) merge
-# (tools/chip_probes/oct_merge_probe.py); KMH_MERGE_OCT=0 reverts
 _MERGE_OCT = _os.environ.get("KMH_MERGE_OCT", "1") == "1"
-# max fused network stages per HBM pass. Chip ladder on the full 2^24
-# (u64, u32-count) merge (tools/chip_probes/depth_merge_probe.py):
-# depth 2 -> 2.607, 4 -> 2.334, 5 -> 2.038, 6 -> 1.966, 7 -> 1.837,
-# 8 -> 1.839, 9 -> 1.829 ns/elem, all bitwise-correct — a plateau at 7
-# with compile time tripling beyond (41 s -> 134 s cold per shape).
-# KMH_MERGE_DEPTH overrides directly; the legacy QUAD/OCT toggles map
-# onto depths 4/5 when set to 0 explicitly.
 _MERGE_DEPTH = int(_os.environ.get(
     "KMH_MERGE_DEPTH",
     "7" if _MERGE_OCT and _MERGE_QUAD else
     ("5" if _MERGE_OCT else ("4" if _MERGE_QUAD else "2"))))
-# row-sort tail size (2^log_tail-element blocks finish the network as one
-# batched lax.sort). Chip sweep on the full 2^24 (u64, u32-count) merge
-# at depth 7 (tools/chip_probes/tail_sweep_probe.py, round-4 y jobs):
-# tail 2^7 -> 1.559, 2^8 -> 1.643, 2^9 -> 1.763, 2^10 -> 1.795,
-# 2^11 -> ~1.84, 2^12 -> 1.939 ns/elem, all bitwise-correct; e2e A/B
-# (round-5 za/zb jobs) STORE 20.0 -> 16.0 ms/batch. 2^7 is the sweep
-# floor (smaller rows ride the G4 batched-row-sort curve's cheap end
-# while the extra strides join the fused static-stride passes). On CPU
-# (the virtual test mesh) the four extra fused passes balloon XLA
-# compile time for zero benefit, so the default stays at 2^11 there;
-# KMH_MERGE_TAIL forces one value everywhere.
-_MERGE_TAIL_ENV = _os.environ.get("KMH_MERGE_TAIL")
-_MERGE_TAIL: "int | None" = (
-    int(_MERGE_TAIL_ENV) if _MERGE_TAIL_ENV else None)
-
-
-def _default_tail() -> int:
-    """Resolve the platform-dependent tail lazily (touching the backend
-    at import time would initialise it before conftest/config runs)."""
-    global _MERGE_TAIL
-    if _MERGE_TAIL is None:
-        import jax as _jax
-
-        _MERGE_TAIL = 7 if _jax.default_backend() == "tpu" else 11
-    return _MERGE_TAIL
-
-
-def _use_merge_sort() -> bool:
-    """Route full sorts through the hierarchical merge path
-    (ops.merge_sort) when KMH_MERGE_SORT=1 — the Pallas merge kernel on
-    TPU, the XLA bitonic rounds elsewhere."""
-    import os
-
-    return os.environ.get("KMH_MERGE_SORT", "0") == "1"
+# row-sort tail: once the network's stride falls below 2^_MERGE_TAIL the
+# remaining stages finish as one batched lax.sort over rows of that size
+# (KMH_MERGE_TAIL overrides).
+_MERGE_TAIL = int(_os.environ.get("KMH_MERGE_TAIL", "11"))
 
 
 @functools.partial(jax.jit, static_argnames=("k",))
@@ -95,30 +55,8 @@ def sort_windows(
     position-ascending input order — the cheapest XLA sort form. k == 32
     occupies all 64 bits, so it takes a two-key path with the invalid flag
     packed beside ``hi`` and the position beside ``lo``.
-
-    Both cases are lexicographic (u64, u32) sorts, so KMH_MERGE_SORT=1
-    reroutes them through ops.merge_sort.sort_kmers_merge.
     """
     u64 = jnp.uint64
-    if hi.ndim == 1 and _use_merge_sort():
-        from . import merge_sort as ms
-
-        key = (hi.astype(u64) << jnp.uint64(32)) | lo.astype(u64)
-        key = jnp.where(valid, key, jnp.uint64(0xFFFFFFFFFFFFFFFF))
-        if k <= 31:
-            key_s, pos_s = ms.sort_kmers_merge(
-                key, pos.astype(jnp.uint32),
-                use_kernel=jax.default_backend() == "tpu",
-            )
-            s_hi = (key_s >> jnp.uint64(32)).astype(jnp.uint32)
-            return s_hi, key_s.astype(jnp.uint32), pos_s.astype(pos.dtype)
-        k2 = ((~valid).astype(jnp.uint32) << 31) | pos.astype(jnp.uint32)
-        key_s, k2_s = ms.sort_kmers_merge(
-            key, k2, use_kernel=jax.default_backend() == "tpu"
-        )
-        s_hi = (key_s >> jnp.uint64(32)).astype(jnp.uint32)
-        s_pos = (k2_s & jnp.uint32(0x7FFFFFFF)).astype(I32)
-        return s_hi, key_s.astype(jnp.uint32), s_pos
     if k <= 16:
         # the 2k-bit kmer fits the high u32, the position the low u32: one
         # packed u64 array, no payload, no stability requirement (keys are
@@ -148,8 +86,8 @@ def sort_windows(
     # (invalid flag above the 31-bit position) breaks that tie. But a
     # real all-G 32-mer needs 32 consecutive Gs — absent from virtually
     # every input — and with no real all-ones key the single-key stable
-    # sort is already correct AND ~1.5x faster (measured 3.62 vs 5.34
-    # ns/elem, tools/chip_probes E5). Branch on a cheap reduction.
+    # sort is already correct and moves one key instead of two. Branch on
+    # a cheap reduction.
     key = (hi.astype(u64) << jnp.uint64(32)) | lo.astype(u64)
     k1 = jnp.where(valid, key, jnp.uint64(0xFFFFFFFFFFFFFFFF))
     k2 = ((~valid).astype(jnp.uint32) << 31) | pos.astype(jnp.uint32)
@@ -177,16 +115,11 @@ def bitonic_merge_lanes(lanes, n_keys: int, log_tail: "int | None" = None):
     of two.
 
     Stages with stride >= 2^log_tail are static-stride compare-exchange
-    passes (pure reshapes + selects, ~0.24 ns/elem/stage measured). Once
-    stride < 2^log_tail every remaining exchange lies within a
-    2^log_tail-element block, and fully sorting each (bitonic) block is
-    a valid completion of the network — done as ONE batched lax.sort
-    over the [M/2^log_tail, 2^log_tail] row view (1.11 ns/elem measured,
-    chip probe G4). The row sort replaces the round-3 fused-view tail:
-    views shaped [..., 2, s] with tiny minor dims can materialise in
-    (8,128)-tiled layout with catastrophic padding at large M (a 25.7 GB
-    allocation for a 400 MB intermediate, e2e bench r3), while the 2-D
-    row view is layout-perfect at every size."""
+    passes (pure reshapes + selects). Once stride < 2^log_tail every
+    remaining exchange lies within a 2^log_tail-element block, and fully
+    sorting each (bitonic) block is a valid completion of the network —
+    done as ONE batched lax.sort over the [M/2^log_tail, 2^log_tail] row
+    view."""
 
     def cxl(x, y):
         """Compare-exchange two lane lists: returns (mins, maxs)."""
@@ -207,9 +140,7 @@ def bitonic_merge_lanes(lanes, n_keys: int, log_tail: "int | None" = None):
         (strides stride, stride/2, .., stride >> (n_stages-1)): all the
         exchanges live within a (2^n_stages · s)-element block, so a
         [.., 2^n_stages, s] view runs them on registers between one read
-        and one write of every lane. Measured ladder on the full 2^24
-        (u64, u32-count) merge: 1 stage/pass 2.6+, pair 2.607, quad
-        2.334, oct 2.038 ns/elem (quad_merge_probe / oct_merge_probe)."""
+        and one write of every lane."""
         s = stride >> (n_stages - 1)
         W = 1 << n_stages
         v = [a.reshape(-1, W, s) for a in lanes]
@@ -227,7 +158,7 @@ def bitonic_merge_lanes(lanes, n_keys: int, log_tail: "int | None" = None):
 
     M = lanes[0].shape[0]
     if log_tail is None:
-        log_tail = _default_tail()
+        log_tail = _MERGE_TAIL
     Lt = min(M, 1 << log_tail)
     stride = M // 2
     while stride >= Lt:
@@ -301,10 +232,10 @@ def searchsorted2(
 @jax.jit
 def lookup_bounds_merge(s_hi, s_lo, n_valid, q_hi, q_lo):
     """(lb, ub) insertion bounds for ALL queries via a sorted merge-join —
-    no gathers. XLA:TPU gather runs at ~115 M elem/s (PERF.md), so the
-    binary search costs ~2·log2(T) gathers per query; here both sides are
-    sorted (the table by construction, the queries by one payload sort),
-    so ONE bitonic merge + prefix scans produce every bound:
+    no gathers. The binary search costs ~2·log2(T) dependent gathers per
+    query; here both sides are sorted (the table by construction, the
+    queries by one payload sort), so ONE bitonic merge + prefix scans
+    produce every bound:
 
     * lb(q) = table keys < q  = table-row count in segments before q's,
     * ub(q) = table keys <= q = total live - table rows in later segments,

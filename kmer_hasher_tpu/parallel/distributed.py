@@ -3,8 +3,8 @@
 The reference is strictly single-process (pthreads over shared memory,
 SURVEY.md §2.3). Multi-host here is standard JAX SPMD: every host runs the
 same program, ``jax.distributed.initialize`` wires the hosts into one
-runtime, and the key-space mesh spans all chips — all_to_all routing rides
-ICI within a slice and DCN across slices. Each host reads a distinct slice
+runtime, and the key-space mesh spans all devices of all hosts. Each host
+reads a distinct slice
 of the input files (true data parallelism, unlike the reference's
 every-thread-reads-everything pool).
 """
@@ -22,8 +22,10 @@ def init_distributed(
 ) -> dict:
     """Initialise the multi-host runtime (no-op on a single process).
 
-    With no arguments, relies on the cluster environment (TPU pods
-    auto-discover). Returns a summary dict for logging.
+    With no arguments, JAX must detect the cluster from its environment;
+    where nothing describes one, pass all three arguments (the
+    coordinator is ``host:port`` of process 0). Returns a summary dict
+    for logging.
     """
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(

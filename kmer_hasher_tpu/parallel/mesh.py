@@ -2,9 +2,10 @@
 
 Single-axis mesh ("shard") — the k-mer engine's parallelism is key-space
 sharding (the reference's ``prefix % thread_n`` owner-computes filter,
-src/kmer_reader.c:28-39, lifted to chips) combined with data-parallel input
-streaming; both ride one axis. Multi-host topologies get the axis laid out
-so all_to_all/psum ride ICI within a slice.
+src/kmer_reader.c:28-39, lifted to devices) combined with data-parallel
+input streaming; both ride one axis. On one host of NVLink-joined cards
+every card reaches every other at one rate, so the flat mesh is the
+default; the two-level mesh is for device groups joined by a slower link.
 """
 from __future__ import annotations
 
@@ -29,15 +30,17 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "shard") -> Mesh:
 def make_hierarchical_mesh(n_slices: int,
                            chips_per_slice: Optional[int] = None,
                            axes=("dcn", "ici")) -> Mesh:
-    """Two-level mesh for multi-slice deployments: the leading axis spans
-    DCN-connected slices, the trailing axis the ICI-connected chips within
-    a slice. ``ShardedCountStore`` routes key batches hierarchically over
-    such a mesh (slice-bucketed all_to_all over DCN, then per-owner
-    all_to_all over ICI) so cross-DCN traffic moves in n_slices large
-    blocks instead of n_chips fine-grained ones.
+    """Two-level mesh: the leading axis spans device groups ("slices")
+    joined by the slower link (e.g. hosts on a network), the trailing
+    axis the devices within a group. ``ShardedCountStore`` routes key
+    batches hierarchically over such a mesh (group-bucketed all_to_all
+    across groups, then per-owner all_to_all within a group) so traffic
+    on the slow link moves in n_slices large blocks instead of n_devices
+    fine-grained ones.
 
-    jax.devices() is ordered slice-major on multi-slice TPU deployments,
-    so a plain reshape puts each row of the mesh inside one slice."""
+    A plain reshape of jax.devices() puts each row of the mesh inside one
+    group when the devices are ordered group-major (as multi-host
+    runtimes order them: process by process)."""
     devices = jax.devices()
     if chips_per_slice is None:
         if len(devices) % n_slices:

@@ -1,10 +1,10 @@
 """Trusted sequential re-implementation of the reference semantics.
 
 This module is the **parity oracle**: a slow, direct Python/NumPy
-re-statement of what the C reference (lmjakt/kmer_hasheR, mounted at
-/root/reference) computes, including its edge-case quirks. Every function
+re-statement of what the C reference (lmjakt/kmer_hasheR) computes,
+including its edge-case quirks. Every function
 cites the reference code it models. It is used by the test-suite to generate
-golden outputs for the TPU compute path and is NOT on any hot path.
+golden outputs for the device compute path and is NOT on any hot path.
 
 Deliberately reproduced quirks (each has a dedicated test):
 
@@ -24,7 +24,7 @@ Deliberately reproduced quirks (each has a dedicated test):
   the preceding valid region has length exactly ``k`` (src/kmer_reader.c:170-190,
   the ``skip_n``/``continue`` path re-enters the rolling branch without
   re-initialising), and looks up a partial window at end-of-sequence.
-  ``refsem`` reproduces this; the TPU path implements the documented intent
+  ``refsem`` reproduces this; the device path implements the documented intent
   (NA for windows overlapping N) — see PARITY.md.
 
 Encoding (src/kmer_util.h:8-12, src/kmer_hash.c:21):

@@ -112,8 +112,12 @@ def _load_sharded_count_store(z, meta, mesh):
             hi[:nd] = z["u_hi"][offs[d]: offs[d + 1]]
             lo[:nd] = z["u_lo"][offs[d]: offs[d + 1]]
             cnt[:nd] = z["cnt"][offs[d]: offs[d + 1]]
+            # n_obs bounds the run's live rows (the store trims runs to
+            # it), so it must cover all nd restored keys: the run's own
+            # observation totals do; total_added is restored below
             store.add_run(jnp.asarray(hi), jnp.asarray(lo),
-                          jnp.asarray(cnt), np.zeros(counts_n, np.int64))
+                          jnp.asarray(cnt),
+                          cnt[:nd].sum(axis=0, dtype=np.int64))
         store.total_added = z["total_added"].copy()
         return store.flush()
     from ..parallel.sharded import ShardedCountStore

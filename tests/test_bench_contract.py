@@ -16,8 +16,8 @@ def test_bench_prints_one_json_line():
         [sys.executable, "-c",
          "import jax; jax.config.update('jax_platforms','cpu');"
          "import runpy; runpy.run_path('bench.py', run_name='__main__')"],
-        capture_output=True, text=True, timeout=500, cwd="/root/repo",
-        env=env,
+        capture_output=True, text=True, timeout=500, env=env,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     )
     assert r.returncode == 0, r.stderr[-2000:]
     lines = [l for l in r.stdout.strip().splitlines() if l.strip()]

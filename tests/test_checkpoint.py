@@ -10,7 +10,6 @@ from kmer_hasher_tpu.api import (
 )
 from kmer_hasher_tpu.utils import checkpoint as ckpt
 
-REF = "/root/reference"
 
 
 def test_index_roundtrip(tmp_path, test_fa):
@@ -31,8 +30,8 @@ def test_index_roundtrip(tmp_path, test_fa):
     )
 
 
-def test_count_store_roundtrip(tmp_path):
-    st = count_kmers_fq_sh_rp(f"{REF}/repeat_40.fq", k=7, min_q=0,
+def test_count_store_roundtrip(ref, tmp_path):
+    st = count_kmers_fq_sh_rp(f"{ref}/repeat_40.fq", k=7, min_q=0,
                               source_n=2, source=0)
     p = tmp_path / "store.npz"
     ckpt.save_count_store(st, p)
@@ -41,7 +40,7 @@ def test_count_store_roundtrip(tmp_path):
     np.testing.assert_array_equal(kmer_spectrum(st2, 100),
                                   kmer_spectrum(st, 100))
     # resume: keep counting into the restored store
-    st2 = count_kmers_fq_sh_rp(f"{REF}/repeat_40.fq", k=7, min_q=0,
+    st2 = count_kmers_fq_sh_rp(f"{ref}/repeat_40.fq", k=7, min_q=0,
                                source_n=2, source=1, store=st2)
     d = st2.counts_dict()
     assert any(v[1] > 0 for v in d.values())

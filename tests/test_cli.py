@@ -6,12 +6,11 @@ import pytest
 
 from kmer_hasher_tpu.__main__ import main
 
-REF = "/root/reference"
 
 
-def test_cli_index_tables_query(tmp_path, capsys, test_fa):
+def test_cli_index_tables_query(ref, tmp_path, capsys, test_fa):
     idx_path = str(tmp_path / "idx.npz")
-    main(["index", f"{REF}/test.fa", "-k", "10", "-o", idx_path])
+    main(["index", f"{ref}/test.fa", "-k", "10", "-o", idx_path])
     info = json.loads(capsys.readouterr().out)
     assert info["distinct"] > 0 and info["positions"] == 59931
 
@@ -35,34 +34,34 @@ def test_cli_index_tables_query(tmp_path, capsys, test_fa):
     assert q["hits"] >= 1991  # self-slice: at least the diagonal
 
 
-def test_cli_partition_files(tmp_path, capsys):
+def test_cli_partition_files(ref, tmp_path, capsys):
     out = str(tmp_path / "plist.npz")
-    main(["count", f"{REF}/repeat_40.fq", f"{REF}/test_10.fastq", "-k", "5",
+    main(["count", f"{ref}/repeat_40.fq", f"{ref}/test_10.fastq", "-k", "5",
           "--min-q", "0", "--partition-files", "-o", out])
     info = json.loads(capsys.readouterr().out)
 
     # equals the incremental two-call run under one source
     inc = str(tmp_path / "inc.npz")
-    main(["count", f"{REF}/repeat_40.fq", "-k", "5", "--min-q", "0",
+    main(["count", f"{ref}/repeat_40.fq", "-k", "5", "--min-q", "0",
           "--source", "0", "-o", inc])
     capsys.readouterr()
-    main(["count", f"{REF}/test_10.fastq", "-k", "5", "--min-q", "0",
+    main(["count", f"{ref}/test_10.fastq", "-k", "5", "--min-q", "0",
           "--source", "0", "--resume", inc, "-o", inc])
     info2 = json.loads(capsys.readouterr().out)
     assert info["distinct"] == info2["distinct"]
     assert info["total_added"] == info2["total_added"]
 
     with pytest.raises(SystemExit, match="partition-files excludes"):
-        main(["count", f"{REF}/repeat_40.fq", "-k", "5",
+        main(["count", f"{ref}/repeat_40.fq", "-k", "5",
               "--partition-files", "--max-reads", "5", "-o", out])
     with pytest.raises(SystemExit, match="ONE source"):
-        main(["count", f"{REF}/repeat_40.fq", "-k", "5", "--source-n", "2",
+        main(["count", f"{ref}/repeat_40.fq", "-k", "5", "--source-n", "2",
               "--partition-files", "-o", out])
 
 
-def test_cli_count_spectrum_depth(tmp_path, capsys):
+def test_cli_count_spectrum_depth(ref, tmp_path, capsys):
     store_path = str(tmp_path / "store.npz")
-    main(["count", f"{REF}/repeat_40.fq", "-k", "5", "--min-q", "0",
+    main(["count", f"{ref}/repeat_40.fq", "-k", "5", "--min-q", "0",
           "-o", store_path])
     info = json.loads(capsys.readouterr().out)
     assert info["distinct"] == 5
@@ -74,14 +73,14 @@ def test_cli_count_spectrum_depth(tmp_path, capsys):
     total = sum(int(l.split("\t")[1]) for l in lines)
     assert total == 5
 
-    main(["depth", store_path, f"{REF}/test.fa", "-k", "5", "-o",
+    main(["depth", store_path, f"{ref}/test.fa", "-k", "5", "-o",
           str(tmp_path / "d.npy")])
     capsys.readouterr()
     d = np.load(tmp_path / "d.npy")
     assert d.shape == (1, 59940)
 
     # resume accumulation through the CLI
-    main(["count", f"{REF}/repeat_40.fq", "-k", "5", "--min-q", "0",
+    main(["count", f"{ref}/repeat_40.fq", "-k", "5", "--min-q", "0",
           "--resume", store_path, "-o", store_path])
     info2 = json.loads(capsys.readouterr().out)
     assert info2["total_added"][0] == 2 * info["total_added"][0]

@@ -14,7 +14,6 @@ from kmer_hasher_tpu.api import (
     seq_kmer_depth,
 )
 
-REF = "/root/reference"
 
 
 def store_dict(store):
@@ -51,8 +50,8 @@ def test_count_kmers_validation():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("k,min_q", [(5, 20), (21, 2)])
-def test_count_fq_sh_matches_oracle(k, min_q, repeat_40_fq):
-    got = count_kmers_fq_sh(f"{REF}/repeat_40.fq", k=k, min_q=min_q,
+def test_count_fq_sh_matches_oracle(ref, k, min_q, repeat_40_fq):
+    got = count_kmers_fq_sh(f"{ref}/repeat_40.fq", k=k, min_q=min_q,
                             prefix_bits=2)
     reads = [(s, q) for (_n, s, q) in repeat_40_fq]
     want = rs.count_kmers_reads_threshold(reads, k=k, min_q_phred=min_q,
@@ -60,11 +59,11 @@ def test_count_fq_sh_matches_oracle(k, min_q, repeat_40_fq):
     assert store_dict(got) == oracle_dict(want)
 
 
-def test_count_fq_ktree_spectrum_zero_cells(repeat_40_fq):
+def test_count_fq_ktree_spectrum_zero_cells(ref, repeat_40_fq):
     # kmer_tree mode: spectrum bin 0 counts the zero cells of allocated
     # dense blocks (the reference's table(spc.0) structure, test.R:409-417)
     k = 5
-    got = count_kmers_fq(f"{REF}/repeat_40.fq", k=k, min_q=0, prefix_bits=1)
+    got = count_kmers_fq(f"{ref}/repeat_40.fq", k=k, min_q=0, prefix_bits=1)
     spec = kmer_spectrum(got, 10000)
     reads = [(s, q) for (_n, s, q) in repeat_40_fq]
     want = rs.count_kmers_reads_threshold(
@@ -79,15 +78,15 @@ def test_count_fq_ktree_spectrum_zero_cells(repeat_40_fq):
 # flagship: count.kmers.fq.sh.rp (BASELINE config 3)
 # ---------------------------------------------------------------------------
 
-def test_rp_test10_and_repeat40_k21(test_10_fastq, repeat_40_fq):
+def test_rp_test10_and_repeat40_k21(ref, test_10_fastq, repeat_40_fq):
     # min_q=10: at min_q=20 a whole 21-mer of repeat_40's q32 bases fails
     # the whole-window likelihood test and source 1 would be all zeros
     # (verified faithful to the reference; see PARITY docs) — 10 keeps the
     # multi-source path non-trivial
     k, min_q = 21, 10
-    st = count_kmers_fq_sh_rp(f"{REF}/test_10.fastq", k=k, min_q=min_q,
+    st = count_kmers_fq_sh_rp(f"{ref}/test_10.fastq", k=k, min_q=min_q,
                               source_n=2, source=0)
-    st = count_kmers_fq_sh_rp(f"{REF}/repeat_40.fq", k=k, min_q=min_q,
+    st = count_kmers_fq_sh_rp(f"{ref}/repeat_40.fq", k=k, min_q=min_q,
                               source_n=2, source=1, store=st)
     reads10 = [(s, q) for (_n, s, q) in test_10_fastq]
     reads40 = [(s, q) for (_n, s, q) in repeat_40_fq]
@@ -98,39 +97,39 @@ def test_rp_test10_and_repeat40_k21(test_10_fastq, repeat_40_fq):
     assert store_dict(st) == oracle_dict(want)
 
 
-def test_rp_gz_subset(test_fastq_gz):
+def test_rp_gz_subset(ref, test_fastq_gz):
     k, min_q = 21, 20
-    st = count_kmers_fq_sh_rp(f"{REF}/test.fastq.gz", k=k, min_q=min_q,
+    st = count_kmers_fq_sh_rp(f"{ref}/test.fastq.gz", k=k, min_q=min_q,
                               max_reads=400)
     reads = [(s, q) for (_n, s, q) in test_fastq_gz[:400]]
     want = rs.count_kmers_reads_ll(reads, k=k, min_q_phred=min_q)
     assert store_dict(st) == oracle_dict(want)
 
 
-def test_rp_incremental_doubles(repeat_40_fq):
-    st = count_kmers_fq_sh_rp(f"{REF}/repeat_40.fq", k=5, min_q=0)
+def test_rp_incremental_doubles(ref, repeat_40_fq):
+    st = count_kmers_fq_sh_rp(f"{ref}/repeat_40.fq", k=5, min_q=0)
     once = store_dict(st)
-    st = count_kmers_fq_sh_rp(f"{REF}/repeat_40.fq", k=5, min_q=0, store=st)
+    st = count_kmers_fq_sh_rp(f"{ref}/repeat_40.fq", k=5, min_q=0, store=st)
     twice = store_dict(st)
     assert set(once) == set(twice)
     for kk, v in once.items():
         assert twice[kk][0] == 2 * v[0]
 
 
-def test_rp_validation():
+def test_rp_validation(ref):
     with pytest.raises(ValueError):
-        count_kmers_fq_sh_rp(f"{REF}/repeat_40.fq", k=5, source_n=5)
+        count_kmers_fq_sh_rp(f"{ref}/repeat_40.fq", k=5, source_n=5)
     with pytest.raises(ValueError):
-        count_kmers_fq_sh_rp(f"{REF}/repeat_40.fq", k=5, source_n=2, source=2)
+        count_kmers_fq_sh_rp(f"{ref}/repeat_40.fq", k=5, source_n=2, source=2)
 
 
 # ---------------------------------------------------------------------------
 # depth track + spectra
 # ---------------------------------------------------------------------------
 
-def test_depth_track_matches_oracle(repeat_40_fq):
+def test_depth_track_matches_oracle(ref, repeat_40_fq):
     k = 5
-    st = count_kmers_fq_sh_rp(f"{REF}/repeat_40.fq", k=k, min_q=0,
+    st = count_kmers_fq_sh_rp(f"{ref}/repeat_40.fq", k=k, min_q=0,
                               source_n=2, source=0)
     reads = [(s, q) for (_n, s, q) in repeat_40_fq]
     want_st = rs.count_kmers_reads_ll(reads, k=k, min_q_phred=0,
@@ -147,15 +146,15 @@ def test_depth_track_matches_oracle(repeat_40_fq):
     np.testing.assert_array_equal(got2, want2.astype(np.int64))
 
 
-def test_depth_k_mismatch(repeat_40_fq):
-    st = count_kmers_fq_sh_rp(f"{REF}/repeat_40.fq", k=5, min_q=0)
+def test_depth_k_mismatch(ref, repeat_40_fq):
+    st = count_kmers_fq_sh_rp(f"{ref}/repeat_40.fq", k=5, min_q=0)
     with pytest.raises(ValueError):
         seq_kmer_depth(st, "ACGTACGTAA", 6)
 
 
-def test_spectrum_matches_oracle(test_fastq_gz):
+def test_spectrum_matches_oracle(ref, test_fastq_gz):
     k, min_q = 16, 10
-    st = count_kmers_fq_sh_rp(f"{REF}/test.fastq.gz", k=k, min_q=min_q,
+    st = count_kmers_fq_sh_rp(f"{ref}/test.fastq.gz", k=k, min_q=min_q,
                               max_reads=300)
     reads = [(s, q) for (_n, s, q) in test_fastq_gz[:300]]
     want_st = rs.count_kmers_reads_ll(reads, k=k, min_q_phred=min_q)
@@ -163,11 +162,11 @@ def test_spectrum_matches_oracle(test_fastq_gz):
                                   rs.kmer_spectrum(want_st, 50))
 
 
-def test_spectrum_n_matches_oracle(test_10_fastq, repeat_40_fq):
+def test_spectrum_n_matches_oracle(ref, test_10_fastq, repeat_40_fq):
     k = 7
-    st = count_kmers_fq_sh_rp(f"{REF}/test_10.fastq", k=k, min_q=0,
+    st = count_kmers_fq_sh_rp(f"{ref}/test_10.fastq", k=k, min_q=0,
                               source_n=2, source=0)
-    st = count_kmers_fq_sh_rp(f"{REF}/repeat_40.fq", k=k, min_q=0,
+    st = count_kmers_fq_sh_rp(f"{ref}/repeat_40.fq", k=k, min_q=0,
                               source_n=2, source=1, store=st)
     want = rs.count_kmers_reads_ll(
         [(s, q) for (_n, s, q) in test_10_fastq], k=k, min_q_phred=0,
@@ -185,13 +184,13 @@ def test_spectrum_n_matches_oracle(test_10_fastq, repeat_40_fq):
         kmer_spectrum_n(st, 30, [1], [2], smin)  # bad inner
 
 
-def test_small_k_prefix_bits_clamped():
+def test_small_k_prefix_bits_clamped(ref):
     # k < 8 with the default prefix_bits=16 used to give negative
     # suffix_bits and negative spectrum bins (round-1 advisor finding)
     import numpy as np
     from kmer_hasher_tpu import counting
 
-    st = counting.count_kmers_fq("/root/reference/repeat_40.fq", k=5)
+    st = counting.count_kmers_fq(f"{ref}/repeat_40.fq", k=5)
     spec = st.spectrum(6000)
     assert (spec >= 0).all()
     assert st.suffix_bits >= 0
@@ -209,11 +208,11 @@ def test_count_store_rejects_bad_bits():
         CountStore(32, prefix_bits=40)
 
 
-def test_packed_upload_counts_bitwise_equal(monkeypatch):
+def test_packed_upload_counts_bitwise_equal(ref, monkeypatch):
     """KMH_PACK_UPLOAD (2-bit seq upload) must not change any store."""
     from kmer_hasher_tpu import counting
 
-    path = "/root/reference/test.fastq.gz"
+    path = f"{ref}/test.fastq.gz"
     monkeypatch.setenv("KMH_PACK_UPLOAD", "0")
     a = counting.count_kmers_fq_sh(path, k=21, min_q=20, max_reads=600)
     c = counting.count_kmers_fq(path, k=11, min_q=10, max_reads=600)
@@ -225,7 +224,7 @@ def test_packed_upload_counts_bitwise_equal(monkeypatch):
                           np.asarray(d.spectrum(12)))
 
 
-def test_fasta_records_counted_without_quality(monkeypatch):
+def test_fasta_records_counted_without_quality(ref, monkeypatch):
     """FASTA input through the fq entries takes the no-quality branch
     (encoder windows, no likelihood filter) — single-chip and sharded,
     packed and unpacked uploads all bitwise equal."""
@@ -233,7 +232,7 @@ def test_fasta_records_counted_without_quality(monkeypatch):
     from kmer_hasher_tpu.io import read_fastx
     from kmer_hasher_tpu.ops import encode as enc
 
-    path = "/root/reference/test.fa"
+    path = f"{ref}/test.fa"
     k = 15
     monkeypatch.setenv("KMH_PACK_UPLOAD", "1")
     a = counting.count_kmers_fq_sh(path, k=k, min_q=20)
@@ -282,14 +281,14 @@ def test_q6_packed_counting_matches_unpacked(tmp_path, monkeypatch):
     assert st_packed.total_added.tolist() == st_raw.total_added.tolist()
 
 
-def test_depth_track_c_semantics_matches_refsem(repeat_40_fq):
+def test_depth_track_c_semantics_matches_refsem(ref, repeat_40_fq):
     """VERDICT r3: semantics="c" on the device path reproduces the
     reference's depth loop exactly (one-column shift, stale-register
     windows across N gaps after exactly-k regions, partial end-of-seq
     writes) — refsem's "c" mode is the bit-exact oracle
     (src/kmer_reader.c:155-194, ground-truth tested)."""
     k = 5
-    st = count_kmers_fq_sh_rp(f"{REF}/repeat_40.fq", k=k, min_q=0,
+    st = count_kmers_fq_sh_rp(f"{ref}/repeat_40.fq", k=k, min_q=0,
                               source_n=2, source=0)
     reads = [(s, q) for (_n, s, q) in repeat_40_fq]
     want_st = rs.count_kmers_reads_ll(reads, k=k, min_q_phred=0,
@@ -321,25 +320,25 @@ def test_depth_track_c_semantics_matches_refsem(repeat_40_fq):
             got, want.astype(np.int64), err_msg=f"query={q!r}")
 
 
-def test_tuned_batch_rows():
+def test_tuned_batch_rows(ref):
     """Tuned rows fill the 2^23 run capacity: 151 bp -> n_win 140 ->
     59392 rows (1024-multiple), clamped to [8192, 65536]; env override
     returns None so the reader's env path wins."""
     from kmer_hasher_tpu.counting import _tuned_batch_rows
 
-    rows = _tuned_batch_rows(f"{REF}/repeat_40.fq", 21)  # 250 bp reads
+    rows = _tuned_batch_rows(f"{ref}/repeat_40.fq", 21)  # 250 bp reads
     # 250 -> bucket16 256 -> n_win 236 -> 2^23//236//1024*1024 = 34816
     assert rows == 34816
     import os
     os.environ["KMH_BATCH_ROWS"] = "12345"
     try:
-        assert _tuned_batch_rows(f"{REF}/repeat_40.fq", 21) is None
+        assert _tuned_batch_rows(f"{ref}/repeat_40.fq", 21) is None
     finally:
         del os.environ["KMH_BATCH_ROWS"]
     assert _tuned_batch_rows("/nonexistent.fq", 21) is None
 
 
-def test_fused_batch_n_win_trim_equivalence():
+def test_fused_batch_n_win_trim_equivalence(ref):
     """The static window-axis trim must not change results: same run
     contents with and without n_win, on pure-qual, pure-noq, and MIXED
     has_qual batches (the where-mixed branch aligns FSM end-aligned and
@@ -373,16 +372,16 @@ def test_fused_batch_n_win_trim_equivalence():
                                       np.asarray(ref[3]))
 
 
-def test_rp_spill_ranged_fold_matches_oracle(test_fastq_gz, monkeypatch):
+def test_rp_spill_ranged_fold_matches_oracle(ref, test_fastq_gz, monkeypatch):
     """CLAUDE.md parity rule for the ranged fold: the spill + out-of-core
-    rejoin path must stay bit-identical to refsem on the bundled data."""
+    rejoin path must stay bit-identical to refsem on the seeded data."""
     monkeypatch.setenv("KMH_FOLD_BUDGET_BYTES", "16384")
     monkeypatch.setenv("KMH_BATCH_ROWS", "64")
     from kmer_hasher_tpu.index.count_store import CountStore
 
     k, min_q = 21, 20
     st = CountStore(k, counts_n=1, spill_bytes=32768)
-    st = count_kmers_fq_sh_rp(f"{REF}/test.fastq.gz", k=k, min_q=min_q,
+    st = count_kmers_fq_sh_rp(f"{ref}/test.fastq.gz", k=k, min_q=min_q,
                               max_reads=400, store=st)
     assert st._spill_seq >= 2  # the regime: multiple runs spilled
     assert st._ranged_fold_needed(0) or not st._spilled
@@ -391,14 +390,14 @@ def test_rp_spill_ranged_fold_matches_oracle(test_fastq_gz, monkeypatch):
     assert store_dict(st) == oracle_dict(want)
 
 
-def test_slice_continuity_check():
+def test_slice_continuity_check(ref):
     """The multi-host boundary continuity check: tiling boundaries pass,
     a gap (dropped records) raises."""
     import pytest
 
     from kmer_hasher_tpu.counting import _check_slice_continuity
 
-    path = f"{REF}/repeat_40.fq"
+    path = f"{ref}/repeat_40.fq"
     import os
 
     size = os.path.getsize(path)

@@ -31,7 +31,7 @@ from kmer_hasher_tpu.io import read_fastx
 from kmer_hasher_tpu.ops import encode as enc
 
 k = 11
-recs = read_fastx("/root/reference/test.fastq.gz", 64)
+recs = read_fastx({fq!r}, 64)
 sl = host_read_slice(len(recs))  # this process's slice of the input
 mine = recs[sl]
 D_local = len(jax.local_devices())
@@ -98,9 +98,10 @@ def _line_json(lines, tag: str):
                            if ln.startswith(tag + " ")).split(" ", 1)[1])
 
 
-def test_two_process_distributed_counting(tmp_path):
+def test_two_process_distributed_counting(ref, tmp_path):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    lines = _run_two_workers(tmp_path, WORKER.format(repo=repo))
+    lines = _run_two_workers(
+        tmp_path, WORKER.format(repo=repo, fq=str(ref / "test.fastq.gz")))
     dist_spec = np.asarray(_line_json(lines, "SPECTRUM"))
 
     # single-process reference: same reads, same row layout, one process
@@ -112,7 +113,7 @@ def test_two_process_distributed_counting(tmp_path):
     from kmer_hasher_tpu.parallel.sharded import ShardedCountStore
 
     k = 11
-    recs = read_fastx("/root/reference/test.fastq.gz", 64)
+    recs = read_fastx(str(ref / "test.fastq.gz"), 64)
     mesh = Mesh(np.asarray(jax.devices()[:8]), ("shards",))
     store = ShardedCountStore(k, mesh, counts_n=1)
     L = 256
@@ -147,8 +148,8 @@ from jax.sharding import Mesh
 from kmer_hasher_tpu.counting import count_kmers_fq_sh_rp
 
 mesh = Mesh(np.asarray(jax.devices()), ("shards",))
-store = count_kmers_fq_sh_rp("/root/reference/test.fastq.gz", 11, min_q=20,
-                             max_reads=64, mesh=mesh)
+store = count_kmers_fq_sh_rp({fq!r}, 11, min_q=20, max_reads=64,
+                             mesh=mesh)
 spec = store.spectrum(50)  # collective: every process participates
 # multi-process checkpoint round-trip: save (process 0 writes), restore on
 # the same mesh, spectra must match bitwise
@@ -183,7 +184,7 @@ from jax.sharding import Mesh
 from kmer_hasher_tpu.io import read_fastx
 from kmer_hasher_tpu.parallel.sharded import ShardedKmerIndex
 
-seq = read_fastx("/root/reference/test.fa")[0][1][:4000]
+seq = read_fastx({fa!r})[0][1][:4000]
 mesh = Mesh(np.asarray(jax.devices()), ("shards",))
 idx = ShardedKmerIndex(seq, 8, mesh)
 tabs = idx.tables(1 | 2 | 8)
@@ -201,11 +202,12 @@ print("WORKER_OK", pid)
 """
 
 
-def test_two_process_index_build(tmp_path):
+def test_two_process_index_build(ref, tmp_path):
     """ShardedKmerIndex on a 2-process mesh: build, range-partitioned
     tables, and cross-sequence query all equal the single-process run."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    lines = _run_two_workers(tmp_path, INDEX_WORKER.format(repo=repo),
+    lines = _run_two_workers(tmp_path, INDEX_WORKER.format(
+        repo=repo, fa=str(ref / "test.fa")),
                              name="worker_idx.py")
     dist = _line_json(lines, "TABLES")
 
@@ -215,7 +217,7 @@ def test_two_process_index_build(tmp_path):
     from kmer_hasher_tpu.io import read_fastx
     from kmer_hasher_tpu.parallel.sharded import ShardedKmerIndex
 
-    seq = read_fastx("/root/reference/test.fa")[0][1][:4000]
+    seq = read_fastx(str(ref / "test.fa"))[0][1][:4000]
     mesh = Mesh(np.asarray(jax.devices()[:8]), ("shards",))
     idx = ShardedKmerIndex(seq, 8, mesh)
     tabs = idx.tables(1 | 2 | 8)
@@ -228,12 +230,13 @@ def test_two_process_index_build(tmp_path):
                                   idx.seq_kmer_pos(seq[1000:1200], 8))
 
 
-def test_two_process_high_level_counting(tmp_path):
+def test_two_process_high_level_counting(ref, tmp_path):
     """count_kmers_fq_sh_rp(mesh=) on a 2-process mesh: each process feeds
     its row slice of every batch (per-host input sharding), results equal
     the single-process run byte-for-byte."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    lines = _run_two_workers(tmp_path, HIGH_LEVEL_WORKER.format(repo=repo),
+    lines = _run_two_workers(tmp_path, HIGH_LEVEL_WORKER.format(
+        repo=repo, fq=str(ref / "test.fastq.gz")),
                              name="worker_hl.py")
     dist_spec = np.asarray(_line_json(lines, "SPECTRUM"))
     dist_total = _line_json(lines, "TOTAL")
@@ -244,7 +247,7 @@ def test_two_process_high_level_counting(tmp_path):
     from kmer_hasher_tpu.counting import count_kmers_fq_sh_rp
 
     mesh = Mesh(np.asarray(jax.devices()[:8]), ("shards",))
-    single = count_kmers_fq_sh_rp("/root/reference/test.fastq.gz", 11,
+    single = count_kmers_fq_sh_rp(str(ref / "test.fastq.gz"), 11,
                                   min_q=20, max_reads=64, mesh=mesh)
     np.testing.assert_array_equal(dist_spec, single.spectrum(50))
     assert dist_total == single.total_added.tolist()

@@ -145,9 +145,9 @@ def test_threshold_sweep_flags_cover_all_flips():
 
 
 @pytest.mark.parametrize("min_q", [0, 20])
-def test_hybrid_counting_bitwise_equals_exact(min_q):
+def test_hybrid_counting_bitwise_equals_exact(ref, min_q):
     k = 15
-    path = "/root/reference/test.fastq.gz"
+    path = f"{ref}/test.fastq.gz"
     exact = counting.count_kmers_fq_sh_rp(path, k=k, min_q=min_q,
                                           max_reads=150, exact_ll=True)
     hybrid = counting.count_kmers_fq_sh_rp(path, k=k, min_q=min_q,

@@ -35,10 +35,10 @@ def test_padding(repeat_40_fq):
     assert (pr.qual[:, 250:] == 0).all()
 
 
-def test_iter_fastx_streams_in_batches():
+def test_iter_fastx_streams_in_batches(ref):
     from kmer_hasher_tpu.io import iter_fastx, read_fastx
 
-    path = "/root/reference/test.fastq.gz"
+    path = f"{ref}/test.fastq.gz"
     batches = list(iter_fastx(path, batch_size=700))
     assert [len(b) for b in batches] == [700, 700, 700, 400]
     flat = [r for b in batches for r in b]
@@ -48,7 +48,7 @@ def test_iter_fastx_streams_in_batches():
             for r in b]
     assert some == read_fastx(path, 100)
     # fasta streaming too
-    fa = list(iter_fastx("/root/reference/test.fa", batch_size=10))
+    fa = list(iter_fastx(f"{ref}/test.fa", batch_size=10))
     assert len(fa) == 1 and fa[0][0][0] == "SUPER_1"
 
 

@@ -5,7 +5,6 @@ import pytest
 
 from kmer_hasher_tpu.io import fastx, native
 
-REF = pathlib.Path("/root/reference")
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native parser not built"
@@ -15,14 +14,14 @@ pytestmark = pytest.mark.skipif(
 @pytest.mark.parametrize(
     "name", ["test.fa", "test_10.fastq", "test.fastq.gz", "repeat_40.fq"]
 )
-def test_native_matches_python(name):
-    assert native.read_fastx(str(REF / name)) == fastx.read_fastx_py(
-        str(REF / name)
+def test_native_matches_python(ref, name):
+    assert native.read_fastx(str(ref / name)) == fastx.read_fastx_py(
+        str(ref / name)
     )
 
 
-def test_native_max_records():
-    a = native.read_fastx(str(REF / "test.fastq.gz"), 7)
+def test_native_max_records(ref):
+    a = native.read_fastx(str(ref / "test.fastq.gz"), 7)
     assert len(a) == 7
 
 
@@ -46,7 +45,7 @@ def test_native_multiline_fasta(tmp_path):
     assert recs == fastx.read_fastx_py(str(p))
 
 
-def test_streaming_raw_batches_match_whole_file():
+def test_streaming_raw_batches_match_whole_file(ref):
     from kmer_hasher_tpu.io import native
 
     if not native.available():
@@ -54,7 +53,7 @@ def test_streaming_raw_batches_match_whole_file():
         pytest.skip("native parser unavailable")
     import numpy as np
 
-    path = "/root/reference/test.fastq.gz"
+    path = f"{ref}/test.fastq.gz"
     whole = native.read_fastx_raw(path)
     batches = list(native.iter_fastx_raw(path, batch_records=700))
     assert [len(b[3]) for b in batches] == [700, 700, 700, 400]
@@ -72,11 +71,11 @@ def test_streaming_raw_batches_match_whole_file():
                                      max_records=100))
     assert sum(len(b[3]) for b in lim) == 100
     # FASTA streaming across batch boundaries
-    fa = list(native.iter_fastx_raw("/root/reference/test.fa", 10))
+    fa = list(native.iter_fastx_raw(f"{ref}/test.fa", 10))
     assert len(fa) == 1 and len(fa[0][3]) == 1
 
 
-def test_iter_fastx_padded_matches_numpy_padder(tmp_path):
+def test_iter_fastx_padded_matches_numpy_padder(ref, tmp_path):
     """The C++ fill (fastx_fill_padded) must be byte-identical to the NumPy
     scatter padder across files, batch sizes, limits and skips."""
     import numpy as np
@@ -101,12 +100,12 @@ def test_iter_fastx_padded_matches_numpy_padder(tmp_path):
     ml.write_text("@r1\nACGTAC\nGT\n+\nIIIIII\nII\n@r2\nAC\n+\nII\n"
                   "@r3\nACGTACGTACGTACGTACGTACGTACGTACGTA\n+\n"
                   "IIIIIIIIIIIIIIIIIIIIIIIIIIIIIIIII\n")
-    cases = [(str(REF / "test.fastq.gz"), 512, None, 0),
-             (str(REF / "test.fastq.gz"), 128, 300, 0),
-             (str(REF / "test.fastq.gz"), 512, None, 700),
-             (str(REF / "test.fastq.gz"), 256, 1000, 100),
-             (str(REF / "test.fa"), 512, None, 0),
-             (str(REF / "repeat_40.fq"), 8, 9, 3),
+    cases = [(str(ref / "test.fastq.gz"), 512, None, 0),
+             (str(ref / "test.fastq.gz"), 128, 300, 0),
+             (str(ref / "test.fastq.gz"), 512, None, 700),
+             (str(ref / "test.fastq.gz"), 256, 1000, 100),
+             (str(ref / "test.fa"), 512, None, 0),
+             (str(ref / "repeat_40.fq"), 8, 9, 3),
              (str(ml), 2, None, 0), (str(ml), 8, None, 1)]
     for path, br, mx, skip in cases:
         a = list(old_iter(path, br, mx, skip))
@@ -120,7 +119,7 @@ def test_iter_fastx_padded_matches_numpy_padder(tmp_path):
             np.testing.assert_array_equal(h1, h2)
 
 
-def test_packed_fill_matches_numpy_packer(tmp_path):
+def test_packed_fill_matches_numpy_packer(ref, tmp_path):
     """fastx_fill_packed's (codes, nmask) must equal the NumPy packer
     applied to the padded byte plane, including partial tail bytes."""
     import numpy as np
@@ -131,7 +130,7 @@ def test_packed_fill_matches_numpy_packer(tmp_path):
     odd.write_text("@r1\nACGTN\n+\nIIIII\n@r2\nnA\n+\nII\n"
                    "@r3\nACGTACGTACGTACGTACGTACGTACGTACGTA\n+\n"
                    "IIIIIIIIIIIIIIIIIIIIIIIIIIIIIIIII\n")
-    for path in [str(REF / "test.fastq.gz"), str(REF / "test.fa"), str(odd)]:
+    for path in [str(ref / "test.fastq.gz"), str(ref / "test.fa"), str(odd)]:
         pairs = list(zip(native.iter_fastx_padded(path, 512),
                          native.iter_fastx_packed(path, 512)))
         assert pairs
@@ -268,13 +267,13 @@ def _range_records_native(path, start, end, batch=7):
 @pytest.mark.parametrize("name", ["test_10.fastq", "repeat_40.fq",
                                   "test.fa"])
 @pytest.mark.parametrize("n_ranges", [2, 3, 5])
-def test_range_partition_exact(name, n_ranges, tmp_path):
+def test_range_partition_exact(ref, name, n_ranges, tmp_path):
     """The union over contiguous byte ranges reproduces the whole file's
     records exactly, in order, with no duplicates — for both the native
     and the pure-Python range readers, at several split counts."""
     import os
 
-    path = str(REF / name)
+    path = str(ref / name)
     want = [(s, q) for (_n, s, q) in fastx.read_fastx_py(path)]
     size = os.path.getsize(path)
     bounds = [size * i // n_ranges for i in range(n_ranges + 1)]
@@ -379,13 +378,13 @@ def test_py_range_parser_multiline_grammar(tmp_path):
     assert info["start"] == 0 and info["end"] == size
 
 
-def test_range_info_tiling(tmp_path):
+def test_range_info_tiling(ref, tmp_path):
     """Resolved per-range boundaries tile the file exactly on 4-line
     input (native + python), giving the counting continuity check its
     invariant."""
     import os
 
-    path = str(REF / "repeat_40.fq")
+    path = str(ref / "repeat_40.fq")
     size = os.path.getsize(path)
     bounds = [size * i // 3 for i in range(4)]
     last_end = 0

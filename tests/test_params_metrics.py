@@ -35,8 +35,8 @@ def test_progress_meter():
     assert len(recs) == 2 and recs[1]["total"] == 30
 
 
-def test_most_common_kmer(repeat_40_fq):
-    st = count_kmers_fq_sh_rp("/root/reference/repeat_40.fq", k=5, min_q=0)
+def test_most_common_kmer(ref, repeat_40_fq):
+    st = count_kmers_fq_sh_rp(f"{ref}/repeat_40.fq", k=5, min_q=0)
     info = most_common_kmer(st)
     # the dominant canonical 5-mer of the ACTGG repeat family
     assert info["count"] == max(v[0] for v in st.counts_dict().values())

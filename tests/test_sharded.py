@@ -107,13 +107,13 @@ def test_sharded_count_store_matches_single(mesh, repeat_40_fq):
     )
 
 
-def test_sharded_hybrid_bitwise_equals_exact(mesh):
+def test_sharded_hybrid_bitwise_equals_exact(ref, mesh):
     """mesh= hybrid counting (per-shard fast-f32 + lax.cond f64 re-scan of
     flagged shards) must produce a store bitwise-equal to exact f64."""
     from kmer_hasher_tpu.api import count_kmers_fq_sh_rp
 
-    for path, k in (("/root/reference/repeat_40.fq", 7),
-                    ("/root/reference/test.fastq.gz", 21)):
+    for path, k in ((f"{ref}/repeat_40.fq", 7),
+                    (f"{ref}/test.fastq.gz", 21)):
         exact = count_kmers_fq_sh_rp(path, k=k, min_q=20, exact_ll=True,
                                      mesh=mesh, max_reads=300)
         hyb = count_kmers_fq_sh_rp(path, k=k, min_q=20, exact_ll="hybrid",
@@ -167,12 +167,12 @@ def test_sharded_hybrid_compacted_sweep_bitwise(mesh, tmp_path):
     np.testing.assert_array_equal(hyb.total_added, exact.total_added)
 
 
-def test_sharded_rp_counting_matches_single(mesh):
+def test_sharded_rp_counting_matches_single(ref, mesh):
     from kmer_hasher_tpu.api import count_kmers_fq_sh_rp
 
-    single = count_kmers_fq_sh_rp("/root/reference/repeat_40.fq", k=7,
+    single = count_kmers_fq_sh_rp(f"{ref}/repeat_40.fq", k=7,
                                   min_q=20, source_n=2, source=1)
-    shard = count_kmers_fq_sh_rp("/root/reference/repeat_40.fq", k=7,
+    shard = count_kmers_fq_sh_rp(f"{ref}/repeat_40.fq", k=7,
                                  min_q=20, source_n=2, source=1, mesh=mesh)
     np.testing.assert_array_equal(
         shard.spectrum(600)[1:], single.spectrum(600)[1:]

@@ -7,7 +7,6 @@ from kmer_hasher_tpu import counting
 from kmer_hasher_tpu.parallel import make_mesh
 from kmer_hasher_tpu.utils import checkpoint as ckpt
 
-REF = "/root/reference"
 
 
 @pytest.fixture(scope="module")
@@ -16,10 +15,10 @@ def mesh():
     return make_mesh(8)
 
 
-def test_sharded_store_roundtrip(tmp_path, mesh):
-    st = counting.count_kmers_fq_sh_rp(f"{REF}/test_10.fastq", k=9,
+def test_sharded_store_roundtrip(ref, tmp_path, mesh):
+    st = counting.count_kmers_fq_sh_rp(f"{ref}/test_10.fastq", k=9,
                                        min_q=20, mesh=mesh)
-    single = counting.count_kmers_fq_sh_rp(f"{REF}/test_10.fastq", k=9,
+    single = counting.count_kmers_fq_sh_rp(f"{ref}/test_10.fastq", k=9,
                                            min_q=20)
     assert int(st.n_unique.sum()) == single.n_unique
     np.testing.assert_array_equal(st.total_added,
@@ -42,16 +41,16 @@ def test_sharded_store_roundtrip(tmp_path, mesh):
                                   np.asarray(single.total_added))
 
 
-def test_cli_count_mesh(tmp_path, capsys):
+def test_cli_count_mesh(ref, tmp_path, capsys):
     import json
 
     from kmer_hasher_tpu.__main__ import main
 
     out = str(tmp_path / "st.npz")
-    main(["count", f"{REF}/repeat_40.fq", "-k", "7", "--min-q", "0",
+    main(["count", f"{ref}/repeat_40.fq", "-k", "7", "--min-q", "0",
           "--mesh", "8", "-o", out])
     info = json.loads(capsys.readouterr().out)
-    single = counting.count_kmers_fq_sh_rp(f"{REF}/repeat_40.fq", k=7,
+    single = counting.count_kmers_fq_sh_rp(f"{ref}/repeat_40.fq", k=7,
                                            min_q=0)
     assert info["distinct"] == single.n_unique
     assert info["total_added"] == np.asarray(single.total_added).tolist()
